@@ -1,9 +1,9 @@
 // Native host-side kernels for stark-rings-tpu.
 //
-// The TPU compute path is JAX/Pallas; this library is the *runtime-side*
+// The device compute path is JAX/XLA; this library is the *runtime-side*
 // native component: a fast CPU implementation of the Goldilocks field and
 // power-of-two negacyclic NTT used as
-//   * the high-speed oracle for verifying large-degree TPU transforms
+//   * the high-speed oracle for verifying large-degree device transforms
 //     (a python-int schoolbook at deg 2^16 is O(N^2) bigint ops — minutes;
 //     this is milliseconds), and
 //   * a host fallback / data-preparation path (e.g. twiddle generation,

@@ -10,7 +10,7 @@ Exercises, in one flow: ring CRT/NTT mul, matrices over ring elements,
 gadget decomposition (to make the witness short), norms, and the
 invertible-challenge sampler.
 
-Run:  python examples/ajtai_commitment.py        (TPU or CPU)
+Run:  python examples/ajtai_commitment.py
 """
 
 import os

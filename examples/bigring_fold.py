@@ -1,15 +1,13 @@
 #!/usr/bin/env python
-"""Big-ring folding combine with a cached challenge — the deg-2^16
-fixed-operand pattern (e50/e51) through the public surface.
+"""Big-ring folding combine with a cached challenge — the fixed-operand
+pattern through the public surface (PowerRing.mxu_ctx).
 
 A folding prover repeatedly computes  w' = c * w + v  where c is ONE
 challenge ring element fixed for the whole round.  With `precompute`,
 c's forward transform is built once; every combine then costs one
-forward + fused fold2-product + one inverse (18.8k deg-2^16 combines/s
-on chip vs 14.3k for the general multiply, PERF_NOTES "Fixed-operand").
+forward + slot product + one inverse instead of a full multiply.
 
-Run:  python examples/bigring_fold.py          (TPU; CPU uses a smaller
-                                                degree in interpret mode)
+Run:  python examples/bigring_fold.py
 """
 
 import os
@@ -24,20 +22,19 @@ if os.environ.get("SRT_PLATFORM"):  # smoke tests force "cpu" in-process
 
 sys.path.insert(0, ".")
 
-from stark_rings_tpu.fields import GOLDILOCKS as F  # noqa: E402
 from stark_rings_tpu.ops.ntt import NTTContext  # noqa: E402
-from stark_rings_tpu.ops.pallas_fold import Mxu2PallasNTT  # noqa: E402
+from stark_rings_tpu.rings import get_power_ring  # noqa: E402
 
 
 def main():
-    on_tpu = jax.default_backend() not in ("cpu",)
-    logN, B = (16, 16) if on_tpu else (10, 4)
+    logN, B = 12, 8
     N = 1 << logN
+    ring = get_power_ring("goldilocks", logN)
+    F = ring.field
     print(f"deg-2^{logN} goldilocks ring, batch {B}, "
-          f"backend {jax.default_backend()}")
+          f"platform {jax.devices()[0].platform}")
 
-    tp = Mxu2PallasNTT(N, dma_folds=True, pointwise_pallas=True,
-                       fuse_pointwise=True, interpret=not on_tpu)
+    tp = ring.mxu_ctx()
     c_tab = jax.device_put(tp.consts())
 
     rng = np.random.default_rng(0)
@@ -60,7 +57,7 @@ def main():
     assert np.array_equal(np.asarray(w1), np.asarray(want)), "mismatch"
     print("combine w' = c*w + v exact vs the radix oracle")
 
-    # squaring (folding cross terms) through the same fused kernels
+    # squaring (folding cross terms): one forward transform
     sq = jax.jit(lambda cc, x: tp.square(x, cc))(c_tab, w)
     assert np.array_equal(np.asarray(sq), np.asarray(ctx.mul(w, w)))
     print("square exact vs the radix oracle")

@@ -13,7 +13,7 @@ serves, driven entirely through this framework's surface.
     4. Fold: s = s_0 + r s_1, c = c_0 + r c_1; verify c == A s by ring
        linearity (the homomorphism folding relies on).
 
-Run:  python examples/folding_step.py          (TPU or CPU)
+Run:  python examples/folding_step.py
 """
 
 import os
@@ -95,8 +95,7 @@ def main():
 
     # --- the same step as ONE jit module (protocol.FoldingStep) --------
     # challenge fold + icrt + gadget decompose + traced L2 check + crt +
-    # Ajtai digit commitment, composed — the production-rate shape
-    # (~1.7x the sum of the stages on chip, PERF_NOTES).
+    # Ajtai digit commitment, composed — the production-rate shape.
     import jax.numpy as jnp
 
     from stark_rings_tpu.protocol import FoldingStep

@@ -14,7 +14,7 @@ check is complete on the balanced digit window and PASSES at every
 level (on goldilocks/babybear negative digits honestly fail it;
 FoldingTree auto-disables psi there).
 
-Run:  python examples/folding_tree.py          (TPU or CPU)
+Run:  python examples/folding_tree.py
 """
 
 import os

@@ -1,9 +1,9 @@
-"""stark-rings-tpu: a TPU-native cyclotomic-ring algebra framework.
+"""stark-rings-tpu: a cyclotomic-ring algebra framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas implementation with the capabilities of
+A from-scratch JAX/XLA implementation with the capabilities of
 NethermindEth/stark-rings (cyclotomic rings Fp[X]/Phi(X) for STARK-friendly
 primes, balanced decomposition, ring linear algebra, multilinear
-extensions), redesigned for TPU:
+extensions), redesigned for batched device execution:
 
 * ring elements are tensors; vectors of ring elements are batch axes
 * the CRT/NTT butterfly dataflow is data (2-term linear stage tables)

@@ -21,7 +21,7 @@ Montgomery factor is a private detail behind ``encode``/``decode``.
 
 The multi-word helper :func:`_mul64_128` splits 64-bit operands into 32-bit
 halves so every hardware multiply is a 32x32->64, which XLA lowers natively
-on TPU (where int64 itself is emulated with 32-bit lanes).
+on every backend (no 64x64->128 instruction is assumed).
 """
 
 from __future__ import annotations
@@ -234,7 +234,7 @@ class Field:
     # words (uint64), accumulate with plain integer adds (safe for up to
     # 2^32 addends), then fold back mod q:  sum_j d_j 2^(32 j) mod q via a
     # per-field power table.  This is how rayon-reduction loops of the
-    # reference (e.g. sparse_matrix.rs:202-217) become scatter-adds on TPU.
+    # reference (e.g. sparse_matrix.rs:202-217) become device scatter-adds.
     @property
     def n_words(self) -> int:
         if self.limbed:

@@ -1,6 +1,6 @@
 """Sparse matrix over ring elements (reference sparse_matrix.rs:18-307).
 
-The reference stores per-row ``Vec<(R, col)>``; the TPU-native layout is
+The reference stores per-row ``Vec<(R, col)>``; the device layout is
 **COO with a static nnz**: ``data [nnz]+elem``, ``row/col int32 [nnz]``.
 Padding entries carry zero data (and row/col 0), which is harmless for all
 ops here because the modular segment-sum adds zeros.

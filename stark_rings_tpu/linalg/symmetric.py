@@ -53,7 +53,7 @@ class SymmetricMatrix:
         (symmetric_matrix.rs:77-89).  The rayon parallelism becomes a
         batched call: with ``vectorized=True`` func receives the full
         int32 index arrays ``(ii, jj)`` of shape [n(n+1)/2] and must
-        return the packed values in one shot (the TPU-idiomatic form);
+        return the packed values in one shot (the vectorized form);
         otherwise func(i, j) is called per entry and must return a
         python-int (or per-element) value."""
         ii = np.array([i for i in range(n) for _ in range(i + 1)],

@@ -5,7 +5,7 @@ Evaluations over {0,1}^n are one tensor ``evals [2^n] + elem`` with the
 reference's **little-endian** index convention (variable 0 = least
 significant bit; fix_variables pairs adjacent entries, dense.rs:171-199).
 
-TPU mapping:
+Device mapping:
 * ``fix_variables``   — reshape-halving lerp per variable (a static chain;
   the reference's skip-if-delta-zero branch is semantically a no-op).
 * ``evaluate``        — fix all variables.

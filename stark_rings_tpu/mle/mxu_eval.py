@@ -1,4 +1,4 @@
-"""Dense-MLE full evaluation as two exact int8 MXU contractions.
+"""Dense-MLE full evaluation as two exact int8 contractions.
 
 A full evaluation of a 2^nv-entry multilinear table T at a point
 (r_0..r_{nv-1}) factors through the table reshaped as a matrix:
@@ -10,17 +10,15 @@ A full evaluation of a 2^nv-entry multilinear table T at a point
 because the little-endian index splits as i = r * 2^hl + c (the same
 index convention as the reference's DenseMultilinearExtension,
 /root/reference/crates/poly/src/mle/dense.rs:107-113).  Both
-contractions run EXACTLY on the MXU with the int8 digit-plane
+contractions run EXACTLY as int8 matmuls with the digit-plane
 construction of ops/mxu2.py — but with *runtime* weights: the eq vector
 is prescaled by 2^(7l) mod q per data plane and digitized to signed
 8-bit planes on device (a few thousand modmuls), so the 2^nv-modmul
-lerp chain of the halving loop becomes one [K, P*R] @ [P*R, C] int8
-matmul plus epilogues.
-
-vs the one-kernel Pallas halving path (mle/pallas_fix.py): that path is
-VPU-bound at ~1 modmul per table entry; this one reads the table once
-through the MXU at ~90 int8 MACs per entry, which the MXU sustains far
-above the VPU modmul envelope.
+lerp chain of the halving loop (DenseMLE.evaluate) becomes one
+[K, P*R] @ [P*R, C] int8 matmul plus epilogues.  ``unsigned`` selects
+the digit scheme (default mxu2.UNSIGNED_DIGITS); the unsigned scheme
+covers contractions up to _U8_MAX_R rows and falls back to the signed
+one beyond.
 """
 
 from __future__ import annotations
@@ -32,7 +30,7 @@ import jax.numpy as jnp
 
 from ..fields import GOLDILOCKS as _f
 from ..ops.mxu2 import (B_BITS, D_BITS, K_BUCKETS, P_PLANES,
-                        K_BUCKETS_U8, P_PLANES_U8)
+                        K_BUCKETS_U8, P_PLANES_U8, UNSIGNED_DIGITS)
 
 __all__ = ["evaluate_goldilocks_mxu", "evaluate_many_goldilocks_mxu",
            "fix_last_variables_mxu"]
@@ -94,6 +92,19 @@ def _weights(u):
     return jnp.concatenate(blocks, axis=1)
 
 
+def _weights_rows(U):
+    """canonical u64 [W, n] -> int8 [K*W, P*n] signed digit planes.
+
+    Row block k holds signed digit k of every row's prescaled weights
+    (the signed counterpart of _weights_u8_rows)."""
+    W, n = U.shape
+    blocks = []
+    for l in range(P_PLANES):
+        s = _f.mul(U, jnp.asarray(np.uint64(pow(2, D_BITS * l, _Q))))
+        blocks.append(_digitize_signed(s).reshape(K_BUCKETS * W, n))
+    return jnp.concatenate(blocks, axis=1)
+
+
 def _planes(x):
     """u64 [R, C] -> int8 [P*R, C] of 7-bit digit planes (l-major)."""
     return jnp.concatenate(
@@ -105,7 +116,8 @@ def _weights_u8(u):
     """canonical u64 [n] -> prescaled unsigned planes uint8 [K8, P8*n].
 
     Unsigned base-256 digitization is carry-free: just shifts+masks of
-    the prescaled values (the runtime analogue of the e34 u8 scheme)."""
+    the prescaled values (the runtime analogue of PrescaledMat's
+    unsigned scheme)."""
     blocks = []
     for l in range(P_PLANES_U8):
         s = _f.mul(u, jnp.asarray(np.uint64(pow(2, 8 * l, _Q))))
@@ -186,8 +198,8 @@ def _fold(V, bias_bits=None):
     return _f.sub(acc, bias_mod)
 
 
-def fix_last_variables_mxu(evals, pts_high):
-    """Fix the HIGHEST len(pts_high) variables in one MXU contraction.
+def fix_last_variables_mxu(evals, pts_high, unsigned=UNSIGNED_DIGITS):
+    """Fix the HIGHEST len(pts_high) variables in one int8 contraction.
 
     ``evals``: canonical u64 [2^nv]; returns the [2^(nv-h)] table of the
     remaining low variables — equals the reference's fix_last_variables
@@ -211,7 +223,7 @@ def fix_last_variables_mxu(evals, pts_high):
         return ev
     M = evals.reshape(R, C)
     u = _eq_vector(pts_high)
-    if R <= _U8_MAX_R:
+    if unsigned and R <= _U8_MAX_R:
         V = jax.lax.dot(_weights_u8(u), _planes_u8(M),
                         preferred_element_type=jnp.int32)
         return _fold(V)
@@ -220,7 +232,8 @@ def fix_last_variables_mxu(evals, pts_high):
     return _fold(V, _bias_bits(R))
 
 
-def evaluate_many_goldilocks_mxu(evals, pts_batch):
+def evaluate_many_goldilocks_mxu(evals, pts_batch,
+                                 unsigned=UNSIGNED_DIGITS):
     """Evaluate one dense Goldilocks MLE at W points, sharing the table
     read: Y = U M (one contraction for ALL points), then per-point
     row-column products — the batched-opening shape of a sumcheck /
@@ -237,11 +250,24 @@ def evaluate_many_goldilocks_mxu(evals, pts_batch):
     hl = nv // 2
     C = 1 << hl
     R = (1 << nv) // C
-    assert R <= _U8_MAX_R and C <= _U8_MAX_R, \
-        "point-batched evaluation supports tables to 2^24"
     M = evals.reshape(R, C)
     U = jax.vmap(lambda p: _eq_vector(list(p)))(P[:, hl:])   # [W, R]
     Vv = jax.vmap(lambda p: _eq_vector(list(p)))(P[:, :hl])  # [W, C]
+    if not unsigned:
+        # Y[w, c] = sum_r U[w, r] M[r, c] — ONE dot for all W points
+        Vb = jax.lax.dot(_weights_rows(U), _planes(M),
+                         preferred_element_type=jnp.int32)   # [K*W, C]
+        Y = _fold(Vb.reshape(K_BUCKETS, W * C),
+                  _bias_bits(R)).reshape(W, C)
+        yp = jnp.concatenate(
+            [((Y >> np.uint64(D_BITS * l)) & np.uint64(0x7F)).astype(
+                jnp.int8) for l in range(P_PLANES)], axis=1)  # [W, P*C]
+        wv = _weights_rows(Vv).reshape(K_BUCKETS, W, P_PLANES * C)
+        V2 = jnp.einsum("kwp,wp->kw", wv.astype(jnp.int32),
+                        yp.astype(jnp.int32))                # exact int32
+        return _fold(V2, _bias_bits(C))
+    assert R <= _U8_MAX_R and C <= _U8_MAX_R, \
+        "the unsigned point-batched evaluation supports tables to 2^24"
     # Y[w, c] = sum_r U[w, r] M[r, c] — ONE dot for all W points
     Vb = jax.lax.dot(_weights_u8_rows(U), _planes_u8(M),
                      preferred_element_type=jnp.int32)       # [K8*W, C]
@@ -257,12 +283,12 @@ def evaluate_many_goldilocks_mxu(evals, pts_batch):
     return _fold(V2)
 
 
-def evaluate_goldilocks_mxu(evals, pts):
+def evaluate_goldilocks_mxu(evals, pts, unsigned=UNSIGNED_DIGITS):
     """Full evaluation of a dense Goldilocks MLE at one point.
 
     ``evals``: canonical u64 [2^nv]; ``pts``: nv scalars (host or
     traced).  Returns the canonical u64 scalar; equals
-    DenseMLE.evaluate / evaluate_goldilocks_pallas exactly.
+    DenseMLE.evaluate exactly.
     """
     nv = len(pts)
     assert evals.shape == (1 << nv,)
@@ -278,7 +304,7 @@ def evaluate_goldilocks_mxu(evals, pts):
     u = _eq_vector(pts[hl:])       # [R] high-half eq
     v = _eq_vector(pts[:hl])       # [C] low-half eq
     # y[c] = sum_r u[r] M[r, c]  — contraction over rows, exact
-    if R <= _U8_MAX_R:
+    if unsigned and R <= _U8_MAX_R:
         Vb = jax.lax.dot(_weights_u8(u), _planes_u8(M),
                          preferred_element_type=jnp.int32)
         y = _fold(Vb)              # [C]
@@ -287,7 +313,7 @@ def evaluate_goldilocks_mxu(evals, pts):
                          preferred_element_type=jnp.int32)
         y = _fold(Vb, _bias_bits(R))   # [C]
     # eval = sum_c y[c] v[c]
-    if C <= _U8_MAX_R:
+    if unsigned and C <= _U8_MAX_R:
         Vb2 = jax.lax.dot(_weights_u8(v), _planes_u8(y[:, None]),
                           preferred_element_type=jnp.int32)
         return _fold(Vb2)[0]

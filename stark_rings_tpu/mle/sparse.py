@@ -1,6 +1,6 @@
 """Sparse multilinear extensions (reference mle/sparse.rs:24-394).
 
-The reference stores a BTreeMap<index, R>; the TPU layout is index/value
+The reference stores a BTreeMap<index, R>; the device layout is index/value
 arrays with a static nnz (``indices int64 [nnz]``, ``values [nnz]+elem``).
 Semantics are "sum of contributions": duplicate indices are allowed and add
 up, which matches the map semantics for every operation here (evaluate,

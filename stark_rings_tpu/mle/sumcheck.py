@@ -3,7 +3,7 @@
 The reference's poly crate exists to serve sumcheck-style provers (its
 HyperPlonk helper set,
 /root/reference/crates/poly/src/polynomials/multilinear_polynomial.rs);
-this module is the TPU-shaped device side of that protocol for the
+this module is the batched device side of that protocol for the
 product claim S = sum_x g(x) h(x): each round's degree-2 message
 (p(0), p(1), p(2)) and table fold are pure batched field ops on the
 halved eval tables — no per-point loops.
@@ -30,8 +30,8 @@ def _halves(T, order):
 
     ``order="lsb"`` binds x_0 (the LSB of the little-endian index —
     the reference's fix_variables convention, dense.rs:171-199);
-    ``order="msb"`` binds the TOP variable (contiguous halves — the
-    TPU-native layout the Pallas prover streams, mle/pallas_sumcheck).
+    ``order="msb"`` binds the TOP variable (contiguous halves, so each
+    round reads two contiguous slices).
     Either order is a sound sumcheck for the same claim; the messages
     relate by the bit-reversal identity (see bit_reverse_table)."""
     if order == "lsb":

@@ -1,7 +1,7 @@
 """Native host runtime (C++ via ctypes).
 
 Build-on-demand shared library with fast CPU Goldilocks kernels: the
-high-speed oracle for large-degree TPU verification plus host-side digit
+high-speed oracle for large-degree device verification plus host-side digit
 decomposition.  See csrc/stark_rings_host.cpp."""
 
 from .host import HostGoldilocks, HostRing, get_host_lib

@@ -1,5 +1,6 @@
 """Derived kernel tables and generic ops: CRT stage tables, large-degree
-NTTs, and Pallas TPU kernels for the hot paths."""
+NTTs, the int8 digit-plane engines, and the batch-trailing model
+multiply."""
 
 from .model_mul import TModelMul
 from .ntt import NTTContext, find_primitive_root, get_ntt

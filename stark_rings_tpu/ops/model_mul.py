@@ -2,9 +2,9 @@
 
 The default RingModel layout is batch-leading: an element vector is
 ``[B, D(, L)]``, so every elementwise field op on the NTT form runs with
-the tiny D / E / limb axis minor-most — on TPU that means E (3/9/4) or
-L (8) of the 128 VPU lanes do work and the rest are padding.  The
-prescaled MXU cores (ops/mxu_dense.py) are already batch-trailing
+the tiny D / E / limb axis minor-most, a poor layout for vectorized
+elementwise code.  The prescaled digit-plane cores (ops/mxu_dense.py)
+are already batch-trailing
 internally (``[C, B]`` in, ``[R, B]`` out); the per-call wrappers
 transpose to batch-leading and back, and the slot-wise extension
 multiply (ring.ntt_mul) then runs lane-starved between them.
@@ -96,8 +96,8 @@ class TModelMul:
 
     def consts(self):
         """The digit-plane weight tables as a pytree, to pass as jit
-        ARGUMENTS (device_put once per closure): constant-weight dots
-        compile ~2-3x slower on this stack (e41/e42)."""
+        ARGUMENTS (device_put once per closure) rather than HLO
+        constants."""
         return {"crt": np.asarray(self._crt.big),
                 "icrt": np.asarray(self._icrt.big)}
 
@@ -133,7 +133,7 @@ class TModelMul:
         """Slot-wise extension multiply, batch minor-most.
 
         Same math as RingModel.ntt_mul (ntt_form.rs:159-189), with every
-        elementwise op shaped [N, E(, E), B] so the VPU lanes run full.
+        elementwise op shaped [N, E(, E), B] so the batch axis is minor-most.
         Operands are ``[D, *batch]`` with equal batch shapes (broadcast
         on the caller side).
         """
@@ -162,7 +162,7 @@ class TModelMul:
         (right-aligned); returns ``[D, *broadcast(ba, bb)]``.  Nothing is
         materialized before the elementwise product, so XLA can fuse the
         broadcasts into the consuming ops (an explicit broadcast_to +
-        reshape forces a copy — measured 3-9x slower, e29)."""
+        reshape forces a copy)."""
         f, ring = self.f, self.ring
         N, E = ring.N, ring.E
         if E == 1:

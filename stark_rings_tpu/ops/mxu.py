@@ -1,20 +1,20 @@
-"""MXU-path modular linear algebra for Goldilocks: exact 64-bit modular
-matrix multiplication on the int8 systolic array.
+"""Round-1 int8-limb modular linear algebra for Goldilocks: exact 64-bit
+modular matrix multiplication as int8 matmuls.
 
-The VPU integer path tops out near 10^10 modmuls/s on a v5e; the MXU has
-~40x that int8 MAC throughput.  This module makes it usable for exact
-mod-q arithmetic:
+Accelerators run int8 matmuls far faster than emulated 64-bit modular
+multiplies.  This module makes them usable for exact mod-q arithmetic
+(ops/mxu2.py supersedes it with pre-scaled weights):
 
 * A constant matrix M (e.g. a 128-point NTT evaluation matrix) and the
   data x are decomposed into **7-bit unsigned digits held in int8**
   (10 digits cover 64 bits; 7 bits keep every value in [0,127] so the
-  signed-int8 MXU sees only nonnegative numbers).
+  signed-int8 dot sees only nonnegative numbers).
 * y = M @ x becomes a 10x10 grid of int8 matmuls with int32 accumulation,
   exact because 128 * 127^2 * 10 < 2^31.
 * Digit-bucket sums (by exponent s = i+j) are carry-packed into base-2^32
   words and folded mod q with the Goldilocks identities
   2^64 = 2^32 - 1, 2^96 = -1, 2^128 = -2^32, 2^192 = 1 — a fixed ~60-op
-  VPU epilogue per output, no generic modmuls.
+  elementwise epilogue per output, no generic modmuls.
 
 `MatmulNTT` builds the full degree-16384 (128x128) negacyclic transform
 out of two such matmul levels (four-step: twist, column NTTs as ONE

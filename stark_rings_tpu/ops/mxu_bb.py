@@ -1,11 +1,11 @@
-"""MXU NTT for BabyBear power-of-two rings (BASELINE config 2).
+"""Digit-plane NTT for BabyBear power-of-two rings (BASELINE config 2).
 
 Same pre-scaled-digit-weights construction as ops/mxu2.py, sized for a
-31-bit modulus.  DEFAULT (unsigned u8 scheme, e34): 4 unsigned 8-bit
-data planes x 4 unsigned weight digits = 16 MACs per modular MAC (vs
-64 for 64-bit Goldilocks), bias-free.  Signed scheme behind
-unsigned=False: 5 x 7-bit planes x 5 signed buckets = 25 MACs with a
-2^26 bucket bias.  Either way the fold is a single Montgomery REDC
+31-bit modulus, with the same default scheme (mxu2.UNSIGNED_DIGITS).
+Signed: 5 x 7-bit planes x 5 signed buckets = 25 MACs per modular MAC
+with a 2^26 bucket bias.  Unsigned (``unsigned=True``): 4 unsigned
+8-bit data planes x 4 unsigned weight digits = 16 MACs, bias-free.
+Either way the fold is a single Montgomery REDC
 because the bucket recombination fits in one u64 word:
 
 * weights are pre-multiplied by ``2^32 mod q`` before digitization, so
@@ -14,7 +14,7 @@ because the bucket recombination fits in one u64 word:
 
 Generalizes the reference's BabyBear butterfly kernels
 (/root/reference/crates/ring/src/cyclotomic_ring/models/babybear/ntt.rs:143-236)
-to the power-of-two degrees of BASELINE config 2 on the MXU.
+to the power-of-two degrees of BASELINE config 2.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 
 from ..fields import get_field
 from .ntt import find_primitive_root
-from .mxu2 import Mxu2NTT, _digitize_signed_host
+from .mxu2 import UNSIGNED_DIGITS, Mxu2NTT, _digitize_signed_host
 
 __all__ = ["MxuBBNTT", "BBPrescaledMat"]
 
@@ -40,9 +40,8 @@ D_BITS = 7
 K_BUCKETS = 5   # signed 8-bit weight digits covering [0, 2^32)
 B_BITS = 8
 
-# unsigned scheme (e34: u8 x u8 dots run at ~94% of the s8 MXU rate):
-# 4 unsigned 8-bit data planes x 4 unsigned 8-bit weight digits = 16
-# MACs per modular MAC (vs 25 signed) and bias-free folds.
+# unsigned scheme: 4 unsigned 8-bit data planes x 4 unsigned 8-bit
+# weight digits = 16 MACs per modular MAC (vs 25 signed), bias-free.
 P_PLANES_U8 = 4
 D_BITS_U8 = 8
 K_BUCKETS_U8 = 4
@@ -58,7 +57,7 @@ class BBPrescaledMat:
     apply(x): x u32 [C, cols] -> M @ x mod q, u32 [R, cols], exact.
     """
 
-    def __init__(self, m_ints, unsigned: bool = True):
+    def __init__(self, m_ints, unsigned: bool = UNSIGNED_DIGITS):
         m = np.asarray(m_ints, dtype=object)
         R, C = m.shape
         self.R, self.C = R, C
@@ -145,7 +144,7 @@ class MxuBBNTT(Mxu2NTT):
     F = _bb
 
     def __init__(self, N: int = 1 << 12, n1: int | None = None,
-                 unsigned: bool = True):
+                 unsigned: bool = UNSIGNED_DIGITS):
         self.N = N
         self.unsigned = unsigned
         if n1 is None:

@@ -1,4 +1,4 @@
-"""One factory for constant modular matrices on the MXU, any field.
+"""One factory for constant modular matrices as int8 matmuls, any field.
 
 ``prescaled_dense(field, m_ints)`` returns a callable with the
 ops/dense_linear.DenseModMat interface (``x [..., C(,L)] -> [..., R(,L)]``,
@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from ..fields import Field
-from .mxu2 import _digitize_signed_host
+from .mxu2 import UNSIGNED_DIGITS, _digitize_signed_host
 
 __all__ = ["prescaled_dense", "Mont64PrescaledMat"]
 
@@ -40,7 +40,7 @@ B_BITS = 8
 P64 = 10     # 7-bit planes covering 64 bits
 K64 = 9      # signed 8-bit buckets covering [0, 2^64)
 
-# unsigned u8 x u8 scheme (e34): 8 planes x 8 buckets, bias-free folds
+# unsigned u8 x u8 scheme: 8 planes x 8 buckets, bias-free folds
 P64_U8 = 8
 K64_U8 = 8
 
@@ -53,7 +53,8 @@ class Mont64PrescaledMat:
     REDC(value) = (value + (lo * q' mod 2^64) * q) / 2^64 < 2q.
     """
 
-    def __init__(self, field: Field, m_ints, unsigned: bool = True):
+    def __init__(self, field: Field, m_ints,
+                 unsigned: bool = UNSIGNED_DIGITS):
         self.f = field
         q = field.q
         assert not field.limbed and q.bit_length() <= 64
@@ -145,7 +146,7 @@ class Mont64PrescaledMat:
 
     def __call__(self, x, big=None):
         """``big`` passes the digit planes as a traced ARGUMENT:
-        constant-weight dots compile 1.1-2.7x slower (e41/e42)."""
+        MB-scale constants embedded in the HLO slow compilation."""
         lead = x.shape[:-1]
         x2 = x.reshape(-1, self.C).T                    # [C, B]
         w = jnp.asarray(self.big) if big is None else big
@@ -186,22 +187,25 @@ class _Wrap2D:
         return y.T.reshape(lead + (self.R,))
 
 
-def prescaled_dense(field: Field, m_ints):
-    """Best MXU implementation of ``x -> M @ x mod q`` for this field."""
+def prescaled_dense(field: Field, m_ints,
+                    unsigned: bool = UNSIGNED_DIGITS):
+    """The int8 digit-plane implementation of ``x -> M @ x mod q`` for
+    this field (``unsigned`` picks the digit scheme, see
+    mxu2.UNSIGNED_DIGITS)."""
     if field.limbed:
         from .mxu_limb import LimbPrescaledMat
 
-        return LimbPrescaledMat(field, m_ints)
+        return LimbPrescaledMat(field, m_ints, unsigned)
     if field.name == "goldilocks":
         from .mxu2 import PrescaledMat
 
-        return _Wrap2D(PrescaledMat(m_ints))
+        return _Wrap2D(PrescaledMat(m_ints, unsigned))
     if field.name == "babybear":
         from .mxu_bb import BBPrescaledMat
 
-        return _Wrap2D(BBPrescaledMat(m_ints))
+        return _Wrap2D(BBPrescaledMat(m_ints, unsigned))
     if field.name == "frog":
-        return Mont64PrescaledMat(field, m_ints)
+        return Mont64PrescaledMat(field, m_ints, unsigned)
     from .dense_linear import DenseModMat
 
     return DenseModMat(field, m_ints)

@@ -10,8 +10,8 @@ two** inputs:
 We derive ``(p, A, s, B)`` for each stage by probing the integer-exact spec
 (`stark_rings_tpu.spec`) with basis vectors, then apply stages on device as
 two gathers + two modular muls + one add — fully vectorized over the
-coefficient axis and any batch axes.  On TPU this keeps the whole CRT a
-fixed chain of elementwise VPU ops with no scalar loops.
+coefficient axis and any batch axes.  This keeps the whole CRT a fixed
+chain of elementwise ops with no scalar loops.
 
 The same representation also covers the ``reduce_in_place`` fold (which has
 up to three terms — handled by the generalized T-term table).

@@ -1,19 +1,17 @@
-"""TPU-lowerable exact collectives for widened (base-2^32 word) sums.
+"""Exact collectives for widened (base-2^32 word) sums.
 
-The TPU runtime's all-reduce only lowers 32-bit-native ``Sum``
-computations: a ``psum`` over uint64 words turns, after XLA's 64-bit
-emulation on 32-bit lanes, into a pair computation the backend rejects
-("Supported lowering only of Sum all reduce", observed on the v5e AOT
-path).  ``psum_words`` keeps the cross-device reduction exact by
-splitting every uint64 word into four 16-bit chunks held in uint32,
-psum-ing those natively, and recombining — chunk sums stay below
-``P * 2^16 << 2^32`` for any realistic mesh, and the recombination is
-exact modulo 2^64, which suffices because the true total is the value
-being represented.
+``psum_words`` keeps a cross-device reduction of uint64 words exact by
+splitting every word into four 16-bit chunks held in uint32, psum-ing
+those, and recombining — chunk sums stay below ``P * 2^16 << 2^32`` for
+any realistic mesh, and the recombination is exact modulo 2^64, which
+suffices because the true total is the value being represented.  The
+chunking exists because the accelerator this library was first built
+for lowered only 32-bit ``Sum`` all-reduces; it is exact under NCCL as
+well, and a plain uint64 ``psum`` could replace it (a simplicity
+candidate, ROADMAP.md).
 
 This replaces the reference's rayon in-process reductions
-(/root/reference/crates/linear_algebra/src/sparse_matrix.rs:202-217)
-with a collective that actually lowers on TPU hardware.
+(/root/reference/crates/linear_algebra/src/sparse_matrix.rs:202-217).
 """
 
 from __future__ import annotations

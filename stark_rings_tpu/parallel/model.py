@@ -1,10 +1,10 @@
 """Data-parallel model-ring operations over a device mesh.
 
 The reference's only parallelism for the model rings is rayon over the
-element vector (`cfg_iter!`, SURVEY.md §2.5).  The TPU equivalent is a
+element vector (`cfg_iter!`, SURVEY.md §2.5).  The device equivalent is a
 batch axis sharded over the mesh: each device runs the fused
 batch-trailing multiply (ops/model_mul.TModelMul — CRT / slot product /
-ICRT as local MXU digit matmuls) on its shard, with ZERO collectives in
+ICRT as local int8 digit matmuls) on its shard, with ZERO collectives in
 the steady state.  One wrapper owns the layout so protocol code can
 scale witness-sized element vectors across chips without touching
 sharding internals.

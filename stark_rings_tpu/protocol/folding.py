@@ -18,14 +18,12 @@ WITHOUT leaving the trace:
     7. (optional) psi range check per digit coefficient
                            (monomial.rs:82-93) — complete for
                            power-of-two cyclotomics; a precomputed
-                           ct-table gather per element since round 5
-                           (rings/monomial._ct_psi_table), so cheap
-                           enough that PROTO_r05 measures with it ON
+                           ct-table lookup per element
+                           (rings/monomial._ct_psi_table)
 
 The composed module is the protocol-rate frontier: stage dispatch fusion
 is free throughput that per-stage benchmarks leave on the table
-(benchmarks/bench_protocol.py measures both and PERF_NOTES "Composed
-folding step" reconciles them)."""
+(benchmarks/bench_protocol.py measures both)."""
 
 from __future__ import annotations
 
@@ -136,8 +134,8 @@ class FoldingStep:
     #: before the commit switches to M-blocked widened accumulation
     #: (256 MB of u64) — the same budget Matrix.mul_mat uses.  Today's
     #: bench shapes (n=8, M=8192, W<=16: 201 MB at W=16) stay
-    #: single-block, the exact code path r4 measured; larger n*M*W
-    #: commitments block instead of materializing the full product
+    #: single-block; larger n*M*W commitments block instead of
+    #: materializing the full product
     _COMMIT_BUDGET_WORDS = 1 << 25
 
     def commit(self, c, dt, block: int | None = None):

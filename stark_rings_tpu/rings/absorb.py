@@ -3,7 +3,7 @@ crates/ring/src/poly_ring.rs:19-30: every base ring's base prime field
 is `Absorb`-able into a sponge).
 
 The reference delegates to arkworks' `Absorb` (CPU-side sponge input);
-the TPU-native equivalent is an explicit, sanctioned API:
+the equivalent here is an explicit, sanctioned API:
 
 * :func:`to_absorb` — the canonical base-prime-field representation of
   any storage tensor (ring elements flatten to their D base-field

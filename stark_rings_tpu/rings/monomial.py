@@ -165,10 +165,9 @@ def psi_range_check_batched(ring: RingModel, a):
     :func:`_ct_psi_table` — no ring multiply per element (the naive
     formulation cost ~D x the Ajtai commit and kept the range check out
     of measured protocol rates).  The lookup is an UNROLLED chain of D
-    selects, not ``jnp.take``: XLA's TPU gather lowering inside a large
-    composed module measured ~30x slower than the whole folding step
-    (PROTO r5: 291 vs 5,620 steps/s), while D fused elementwise selects
-    are VPU-native.  Exactly equal to the onehot + ``coeff_mul``
+    selects, not ``jnp.take``: D elementwise selects fuse into the
+    surrounding elementwise code of the composed step, where a gather
+    need not.  Exactly equal to the onehot + ``coeff_mul``
     formulation on every input, valid or not: for valid exponents both
     read ct(psi * X^pos); for invalid ones the result is False either
     way (``valid`` gates, and no garbage table entry can collide with a

@@ -100,62 +100,44 @@ class PowerRing:
         from a batch-1 b broadcasts over a's batch."""
         return self.ctx.inverse(self.field.mul(self.ctx.forward(a), fb))
 
-    def mxu_ctx(self, pallas: bool = True):
-        """The MXU v2 fast multiplier for this degree (goldilocks and
-        babybear; built lazily — the pre-scaled weight digitization is a
-        host-side one-time cost).  `mxu_ctx().staged_mul()` /
-        `.jit_mul()` is the production multiply; bit-exact vs
-        `coeff_mul` (leaf orders differ only internally — coefficients
-        in, coefficients out; operands in field STORAGE form)."""
-        cache = getattr(self, "_mxu_ctx", None)
-        if cache is None:
-            cache = self._mxu_ctx = {}
+    def mxu_ctx(self):
+        """The int8 digit-plane multiplier for this degree, one engine
+        per field on every platform: ``Mxu2NTT`` (goldilocks),
+        ``MxuBBNTT`` (babybear), ``MxuLimbNTT`` (stark_prime).  Built
+        lazily once — the pre-scaled weight digitization is a host-side
+        one-time cost.  ``mxu_ctx().jit_mul()`` is the production
+        multiply; bit-exact vs ``coeff_mul`` (leaf orders differ only
+        internally — coefficients in, coefficients out; operands in
+        field STORAGE form)."""
+        ctx = getattr(self, "_mxu_ctx", None)
+        if ctx is not None:
+            return ctx
         if self.field.name == "babybear":
-            import jax as _jax
+            from ..ops.mxu_bb import MxuBBNTT
 
-            if pallas and _jax.default_backend() != "cpu":
-                # DMA-looped Pallas fold epilogues: +21% over the XLA
-                # REDC folds on chip (e32), bit-exact.  Mosaic kernels
-                # need a TPU backend; on CPU the XLA-fold variant is
-                # the real path (interpret mode is test-only).
-                if "bb_pallas" not in cache:
-                    from ..ops.pallas_fold_bb import MxuBBPallasNTT
-
-                    cache["bb_pallas"] = MxuBBPallasNTT(self.D)
-                return cache["bb_pallas"]
-            if "bb" not in cache:
-                from ..ops.mxu_bb import MxuBBNTT
-
-                cache["bb"] = MxuBBNTT(self.D)
-            return cache["bb"]
-        if self.field.limbed:
+            ctx = MxuBBNTT(self.D)
+        elif self.field.limbed:
             # 252-bit prime: LimbPrescaledMat levels + word-REDC folds
-            if "limb" not in cache:
-                from ..ops.mxu_limb import MxuLimbNTT
+            from ..ops.mxu_limb import MxuLimbNTT
 
-                cache["limb"] = MxuLimbNTT(self.field, self.D)
-            return cache["limb"]
-        assert self.field.name == "goldilocks", \
-            "MXU weights exist for goldilocks/babybear/stark_prime"
-        if pallas not in cache:
-            if pallas:
-                from ..ops.pallas_fold import Mxu2PallasNTT
+            ctx = MxuLimbNTT(self.field, self.D)
+        else:
+            assert self.field.name == "goldilocks", \
+                "digit weights exist for goldilocks/babybear/stark_prime"
+            from ..ops.mxu2 import Mxu2NTT
 
-                cache[pallas] = Mxu2PallasNTT(self.D, pointwise_pallas=True)
-            else:
-                from ..ops.mxu2 import Mxu2NTT
-
-                cache[pallas] = Mxu2NTT(self.D)
-        return cache[pallas]
+            ctx = Mxu2NTT(self.D)
+        self._mxu_ctx = ctx
+        return ctx
 
     def fourstep_ctx(self):
         """Single-chip four-step multiplier on flat [.., N] tensors.
 
-        The four-step stages (parallel.ShardedNTT single_chip mode)
-        measured FASTER than the mxu2 digit engine at deg 2^20 (361 vs
-        282-293 mults/s, bench r5: the VPU radix stages avoid the int32
-        bucket-write HBM amplification that caps the big level dots) and
-        slower below ~2^19 — pick per degree.  Returns (forward,
+        An alternative exact path to :meth:`mxu_ctx` at large degrees:
+        its radix stages avoid the digit engine's int32 bucket tensor
+        (4x the canonical bytes) but do ~log N emulated 64-bit modular
+        multiplies per slot instead of int8 dots; which one is faster
+        at a given degree is a measurement.  Returns (forward,
         inverse, mul) on flat [.., N] tensors; ``mul`` is bit-equal to
         :meth:`coeff_mul` (tested).  forward/inverse are a SELF-
         CONSISTENT evaluation pair whose slot ORDER differs from this

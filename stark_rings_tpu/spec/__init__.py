@@ -6,7 +6,7 @@ kernels, balanced decomposition and ring arithmetic with exactly the same
 semantics as the Rust reference (NethermindEth/stark-rings).  It is used to
 
 * validate against the reference's golden test vectors,
-* derive the constant tables / linear-stage data consumed by the JAX/TPU
+* derive the constant tables / linear-stage data consumed by the JAX
   runtime (`stark_rings_tpu.ops`), and
 * serve as a slow oracle in the test-suite.
 

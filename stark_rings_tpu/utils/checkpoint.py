@@ -1,7 +1,7 @@
 """Checkpoint/resume helpers.
 
 The reference has no checkpointing (SURVEY.md §5) — its capability is
-"everything is CanonicalSerialize".  Long-running TPU benchmark/prover
+"everything is CanonicalSerialize".  Long-running benchmark/prover
 loops want more: whole-pytree snapshots of ring tensors.  Storage is the
 raw canonical uint arrays (portable: independent of Montgomery factors,
 which are re-derived from the field name on load)."""

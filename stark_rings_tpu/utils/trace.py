@@ -2,7 +2,7 @@
 
 The reference has no instrumentation beyond arkworks start_timer! no-ops
 (SURVEY.md §5); here tracing is first-class: spans integrate with the JAX
-profiler (visible in TensorBoard/XProf traces on TPU) and fall back to a
+profiler (visible in TensorBoard/XProf device traces) and fall back to a
 wall-clock log."""
 
 from __future__ import annotations

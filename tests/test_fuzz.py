@@ -79,7 +79,7 @@ def test_fuzz_add_sub_rot(name):
 # -- reference-volume consistency (goldilocks/ntt.rs:801-806 runs 10^6
 # scalar iterations; here 10^5 ring elements per model (2.4-7.2 x 10^6
 # base-field coefficients) go through ONE jitted batched call — the
-# TPU-native equivalent volume) -----------------------------------------
+# batched equivalent volume) -----------------------------------------
 
 VOLUME = 100_000
 # the 252-bit prime's CIOS limb arithmetic makes volume graphs compile

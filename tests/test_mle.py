@@ -227,48 +227,6 @@ def test_ring_element_mle():
     assert got == cur[0]
 
 
-def test_pallas_full_evaluate_matches_dense():
-    """One-kernel full-table evaluation (mle/pallas_fix.py) must equal
-    DenseMLE.evaluate exactly (binding order is irrelevant for a full
-    evaluation — each variable gets its own coordinate)."""
-    import random
-
-    from stark_rings_tpu.fields import GOLDILOCKS as gf
-    from stark_rings_tpu.linalg import FieldElems as GFE
-    from stark_rings_tpu.mle.pallas_fix import evaluate_goldilocks_pallas
-
-    rng = np.random.default_rng(17)
-    pr = random.Random(17)
-    for nv in (9, 11):
-        ev = rng.integers(0, gf.q, size=(1 << nv,), dtype=np.uint64)
-        pts = [np.uint64(pr.randrange(gf.q)) for _ in range(nv)]
-        want = int(gf.decode(DenseMLE(GFE(gf), nv, ev).evaluate(list(pts))))
-        got = int(gf.decode(
-            evaluate_goldilocks_pallas(ev, pts, interpret=True)))
-        assert want == got
-
-
-def test_pallas_fix_last_matches_dense():
-    """Partial one-kernel fix (mle/pallas_fix.fix_last_goldilocks_pallas)
-    must equal DenseMLE.fix_last_variables exactly."""
-    import random
-
-    from stark_rings_tpu.fields import GOLDILOCKS as gf
-    from stark_rings_tpu.linalg import FieldElems as GFE
-    from stark_rings_tpu.mle.pallas_fix import fix_last_goldilocks_pallas
-
-    rng = np.random.default_rng(19)
-    pr = random.Random(19)
-    for nv, k in ((9, 2), (11, 4)):
-        ev = rng.integers(0, gf.q, size=(1 << nv,), dtype=np.uint64)
-        pts = [np.uint64(pr.randrange(gf.q)) for _ in range(k)]
-        want = np.asarray(
-            DenseMLE(GFE(gf), nv, ev).fix_last_variables(list(pts)).evals)
-        got = np.asarray(
-            fix_last_goldilocks_pallas(ev, pts, interpret=True))
-        assert np.array_equal(want, got)
-
-
 @pytest.mark.parametrize("name", ["goldilocks", "stark_prime"])
 def test_dense_from_evaluations_padded(name):
     """from_evaluations_vec_padded (dense.rs:79-89): short evaluation

@@ -1,7 +1,8 @@
 """MXU NTT v2 (pre-scaled int8 digit matmuls + fold epilogues): CPU
 bit-exactness vs NTTContext and the integer layout invariants.
 
-The TPU bench path (bench.py) uses these classes; parity anchor is the
+The power-ring multiply (PowerRing.mxu_ctx) uses these classes; parity
+anchor is the
 generalized butterfly dataflow of goldilocks/ntt.rs:135-319 scaled to
 power-of-two degrees."""
 
@@ -15,7 +16,6 @@ from stark_rings_tpu.fields import GOLDILOCKS as F
 from stark_rings_tpu.ops.mxu2 import (
     K_BUCKETS, Mxu2NTT, PrescaledMat, _digitize_signed_host)
 from stark_rings_tpu.ops.ntt import NTTContext
-from stark_rings_tpu.ops.pallas_fold import Mxu2PallasNTT, pointwise_mul
 
 N = 1 << 10
 
@@ -63,12 +63,6 @@ def test_mxu2_xla_mul_exact(data):
     assert np.array_equal(np.asarray(t.staged_mul()(a, b)), want)
 
 
-def test_mxu2_pallas_interpret_mul_exact(data):
-    a, b, want = data
-    tp = Mxu2PallasNTT(N, interpret=True)
-    assert np.array_equal(np.asarray(tp.staged_mul()(a, b)), want)
-
-
 def test_mxu2_roundtrip_and_forward_consistency(data):
     a, _, _ = data
     t = Mxu2NTT(N)
@@ -81,27 +75,6 @@ def test_mxu2_roundtrip_and_forward_consistency(data):
     fa = np.sort(np.asarray(t.forward(a)), axis=-1)
     fb = np.sort(np.asarray(ctx.forward(a)), axis=-1)
     assert np.array_equal(fa, fb)
-
-
-def test_pallas_pointwise_interpret():
-    rng = np.random.default_rng(8)
-    a = jax.device_put(rng.integers(0, F.q, (4, 2048), dtype=np.uint64))
-    b = jax.device_put(rng.integers(0, F.q, (4, 2048), dtype=np.uint64))
-    got = np.asarray(pointwise_mul(a, b, interpret=True))
-    assert np.array_equal(got, np.asarray(F.mul(a, b)))
-
-
-def test_pallas_pointwise_chain_interpret():
-    from stark_rings_tpu.ops.pallas_fold import pointwise_chain
-
-    rng = np.random.default_rng(9)
-    a = jax.device_put(rng.integers(0, F.q, (2, 2048), dtype=np.uint64))
-    b = jax.device_put(rng.integers(0, F.q, (2, 2048), dtype=np.uint64))
-    got = np.asarray(pointwise_chain(a, b, depth=5, interpret=True))
-    want = a
-    for _ in range(5):
-        want = F.mul(want, b)
-    assert np.array_equal(got, np.asarray(want))
 
 
 @pytest.mark.parametrize("logN", [12, 13])
@@ -125,7 +98,7 @@ def test_power_ring_mxu_ctx():
     rng = np.random.default_rng(77)
     a = jax.device_put(rng.integers(0, F.q, (2, 4096), dtype=np.uint64))
     b = jax.device_put(rng.integers(0, F.q, (2, 4096), dtype=np.uint64))
-    m = pr.mxu_ctx(pallas=False)
+    m = pr.mxu_ctx()
     assert np.array_equal(np.asarray(m.staged_mul()(a, b)),
                           np.asarray(pr.coeff_mul(a, b)))
 
@@ -144,36 +117,6 @@ def test_staged_granularities_match():
         assert np.array_equal(got, want), gran
 
 
-def test_mxu2_dma_folds_interpret_mul_exact(data):
-    """DMA-looped folds (in-kernel chunk loop, pallas_fold.fold_*_dma):
-    the single-module multiply must match the reference context exactly,
-    including non-power-of-two chunk alignment fallbacks."""
-    a, b, want = data
-    for chunk in (128, 96):
-        tp = Mxu2PallasNTT(N, interpret=True, dma_folds=True,
-                           fold_chunk=chunk, pointwise_pallas=True)
-        assert np.array_equal(np.asarray(tp.mul(a, b)), want)
-
-
-def test_pointwise_dma_interpret():
-    from stark_rings_tpu.ops.pallas_fold import pointwise_dma
-
-    rng = np.random.default_rng(11)
-    a = jax.device_put(rng.integers(0, F.q, (16, 2048), dtype=np.uint64))
-    b = jax.device_put(rng.integers(0, F.q, (16, 2048), dtype=np.uint64))
-    got = np.asarray(pointwise_dma(a, b, chunk_rows=4, interpret=True))
-    assert np.array_equal(got, np.asarray(F.mul(a, b)))
-
-
-def test_mxu2_fused_pointwise_interpret(data):
-    """fold_end2_mul_dma: the two forward end-folds and the slot product
-    fused into one kernel must equal the unfused multiply exactly."""
-    a, b, want = data
-    tp = Mxu2PallasNTT(N, interpret=True, dma_folds=True, fold_chunk=128,
-                       pointwise_pallas=True, fuse_pointwise=True)
-    assert np.array_equal(np.asarray(tp.mul(a, b)), want)
-
-
 def test_mxu2_mul_cached_and_square(data):
     """Fixed-operand multiply (cached forward transform) and square must
     equal the full multiply bit-exactly on the XLA base path."""
@@ -187,37 +130,3 @@ def test_mxu2_mul_cached_and_square(data):
     sq_want = np.asarray(ctx.mul(a, a))
     assert np.array_equal(np.asarray(t.square(a)), sq_want)
     assert np.array_equal(np.asarray(t.jit_square()(a)), sq_want)
-
-
-def test_mxu2_fused_mul_cached_interpret(data):
-    """Fused-path cached multiply: the cached operand is the un-folded
-    level-2 bucket tensor, consumed by fold_end2_mul_dma against the
-    live operand's buckets — must be bit-identical to the full mul."""
-    a, b, want = data
-    tp = Mxu2PallasNTT(N, interpret=True, dma_folds=True, fold_chunk=128,
-                       pointwise_pallas=True, fuse_pointwise=True)
-    fb = tp.precompute(b)
-    assert np.array_equal(np.asarray(tp.mul_cached(a, fb)), want)
-    ctx = NTTContext(F, N, negacyclic=True)
-    sq_want = np.asarray(ctx.mul(a, a))
-    assert np.array_equal(np.asarray(tp.square(a)), sq_want)
-    # batch-1 cached operand broadcast (challenge-multiply pattern),
-    # both paths
-    c1 = b[:1]
-    want1 = np.asarray(ctx.mul(a, jnp.broadcast_to(c1, a.shape)))
-    f1 = tp.precompute(c1)
-    assert np.array_equal(np.asarray(tp.mul_cached(a, f1)), want1)
-    t = Mxu2NTT(N)
-    assert np.array_equal(
-        np.asarray(t.mul_cached(a, t.precompute(c1))), want1)
-
-
-def test_mxu2_stacked_forward_interpret(data):
-    """stack_forward (e38): both operands' forward transforms through
-    ONE stacked dot/fold pair, the fold2 kernel reading each operand's
-    bucket half via DMA column offsets — must be bit-identical."""
-    a, b, want = data
-    tp = Mxu2PallasNTT(N, interpret=True, dma_folds=True, fold_chunk=128,
-                       pointwise_pallas=True, fuse_pointwise=True,
-                       stack_forward=True)
-    assert np.array_equal(np.asarray(tp.mul(a, b)), want)

@@ -307,73 +307,6 @@ def test_single_chip_four_step_matches_radix_oracle():
     assert np.array_equal(rt, a)
 
 
-def _pallas_vs_xla(Pn=8, N=1 << 8, B=2, field="goldilocks"):
-    import jax
-    import numpy as np
-    from stark_rings_tpu.fields import get_field
-    from stark_rings_tpu.parallel import ShardedNTT, make_mesh
-
-    if len(jax.devices()) < Pn:
-        import pytest
-        pytest.skip("not enough devices")
-    f = get_field(field)
-    rng = np.random.default_rng(12)
-    mesh = make_mesh(Pn)
-    sx = ShardedNTT(field, N, Pn)
-    sp = ShardedNTT(field, N, Pn, exchange="pallas",
-                    exchange_interpret=True)
-    dt = np.uint32 if field == "babybear" else np.uint64
-    a = sx.to_matrix(rng.integers(0, f.q, size=(B, N), dtype=dt))
-    b = sx.to_matrix(rng.integers(0, f.q, size=(B, N), dtype=dt))
-    return f, mesh, sx, sp, a, b, rng, N
-
-
-@pytest.mark.parametrize("field", [
-    pytest.param("goldilocks", marks=pytest.mark.slow), "babybear"])
-def test_pallas_exchange_matches_xla_collective(field):
-    """The Pallas remote-copy exchange (twiddle fused into the send
-    loop, parallel/pallas_exchange.py) is bit-exact vs the XLA
-    all_to_all path — forward AND inverse, via the distributed
-    interpret mode on the CPU mesh, for both wired fields (goldilocks
-    2-plane u32-pair modmul, babybear 1-plane u32 Montgomery).
-    (N = 2^8, B = 2: interpret-mode remote-DMA is python-loop slow;
-    the slice/semaphore logic is size-independent.)"""
-    import numpy as np
-
-    f, mesh, sx, sp, a, b, rng, N = _pallas_vs_xla(field=field)
-    fx, ix, _ = sx.make_fns(mesh, batch_ndim=1, overlap=False)
-    fp, ip, _ = sp.make_fns(mesh, batch_ndim=1, overlap=False)
-    assert (np.asarray(fx(a)) == np.asarray(fp(a))).all()
-    ya = fx(a)
-    assert (np.asarray(ix(ya)) == np.asarray(ip(ya))).all()
-    assert (np.asarray(ip(fp(a))) == np.asarray(a)).all()
-
-
-@pytest.mark.slow
-def test_pallas_exchange_mul_cached_batchless():
-    """Heavier pallas-exchange coverage: full mul, the cached-operand
-    path end-to-end, and the batchless layout."""
-    import numpy as np
-
-    f, mesh, sx, sp, a, b, rng, N = _pallas_vs_xla()
-    _, _, mx = sx.make_fns(mesh, batch_ndim=1)
-    _, _, mp = sp.make_fns(mesh, batch_ndim=1)
-    assert (np.asarray(mx(a, b)) == np.asarray(mp(a, b))).all()
-
-    prex, mcx, sqx = sx.make_cached_fns(mesh, batch_ndim=1)
-    prep, mcp, sqp = sp.make_cached_fns(mesh, batch_ndim=1)
-    vb = prex(b)
-    assert (np.asarray(vb) == np.asarray(prep(b))).all()
-    assert (np.asarray(mcx(a, vb)) == np.asarray(mcp(a, vb))).all()
-    assert (np.asarray(sqx(a)) == np.asarray(sqp(a))).all()
-
-    fx0, ix0, _ = sx.make_fns(mesh)
-    fp0, ip0, _ = sp.make_fns(mesh)
-    c = sx.to_matrix(rng.integers(0, f.q, size=(N,), dtype=np.uint64))
-    assert (np.asarray(fx0(c)) == np.asarray(fp0(c))).all()
-    assert (np.asarray(ip0(fp0(c))) == np.asarray(c)).all()
-
-
 def test_make_fns_auto_overlap_default():
     """overlap=None (the new default) pipelines even batches and falls
     back for odd ones — bit-identical to the explicit variants."""

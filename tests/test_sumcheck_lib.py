@@ -91,7 +91,7 @@ def test_sumcheck_msb_order_is_lsb_on_bit_reversed_tables():
     """The two binding orders are the same protocol through one
     permutation: msb-order proving on bit_reverse_table(T) produces
     exactly the lsb-order messages and finals for T (the identity the
-    Pallas prover's layout rests on)."""
+    msb-order layout rests on)."""
     from stark_rings_tpu.mle.sumcheck import bit_reverse_table
 
     nv = 8
@@ -107,88 +107,6 @@ def test_sumcheck_msb_order_is_lsb_on_bit_reversed_tables():
         order="msb"))(G, H)
     assert np.array_equal(np.asarray(m_lsb), np.asarray(m_msb))
     assert int(g_l) == int(g_m) and int(h_l) == int(h_m)
-
-
-def _check_pallas_vs_oracle(rng, nv, k, chunk, field="goldilocks"):
-    from stark_rings_tpu.fields import get_field
-    from stark_rings_tpu.mle.pallas_sumcheck import (
-        sumcheck_prove_goldilocks_pallas, sumcheck_prove_many_pallas)
-    from stark_rings_tpu.mle.sumcheck import (
-        sumcheck_prove_many_with_challenges)
-
-    f = get_field(field)
-    dt = np.uint32 if field == "babybear" else np.uint64
-    # frog/babybear tables are MONTGOMERY storage; random u32/u64 values
-    # below q are valid storage either way (uniform in the field)
-    tables = [jnp.asarray(rng.integers(0, f.q, size=(1 << nv,), dtype=dt))
-              for _ in range(k)]
-    chals = [jnp.asarray(dt(int(v)))
-             for v in rng.integers(0, f.q, size=(nv,), dtype=dt)]
-    want_m, want_f = jax.jit(
-        lambda ts: sumcheck_prove_many_with_challenges(
-            f, ts, chals, order="msb"))(tables)
-    got_m, got_f = jax.jit(
-        lambda ts: sumcheck_prove_many_pallas(
-            ts, chals, chunk=chunk, interpret=True, field=field))(tables)
-    assert np.array_equal(np.asarray(want_m), np.asarray(got_m)), (nv, k)
-    for j in range(k):
-        assert int(want_f[j]) == int(got_f[j]), (nv, k, j)
-    if k == 2 and field == "goldilocks":
-        m2, gv, hv = jax.jit(
-            lambda G, H: sumcheck_prove_goldilocks_pallas(
-                G, H, chals, interpret=True))(tables[0], tables[1])
-        assert np.array_equal(np.asarray(m2), np.asarray(want_m))
-        assert int(gv) == int(want_f[0]) and int(hv) == int(want_f[1])
-
-
-def test_sumcheck_pallas_kernel_matches_oracle():
-    """The one-kernel Pallas prover (mle/pallas_sumcheck.py, interpret
-    mode on CPU) equals the msb-order XLA oracle message-for-message
-    (2-ary, nv=12; the k-ary / multi-chunk / W-batched variants run in
-    the slow twin below)."""
-    _check_pallas_vs_oracle(np.random.default_rng(9), 12, 2, 256)
-
-
-def test_sumcheck_pallas_kernel_babybear():
-    """The field-parametric kernel on babybear: ONE u32 Montgomery plane
-    whose in-kernel ops are the field's storage ops — exact vs the
-    msb-order XLA oracle on the same storage."""
-    _check_pallas_vs_oracle(np.random.default_rng(5), 12, 2, 256,
-                            field="babybear")
-
-
-@pytest.mark.slow
-def test_sumcheck_pallas_kernel_kary_multichunk_batch():
-    """Slow twin: 3-ary product (nv=13), the multi-chunk accumulator
-    path in both the streamed and in-scratch rounds (nv=14, chunk=16),
-    and the W-batched wrapper vs per-claim proofs."""
-    from stark_rings_tpu.mle.pallas_sumcheck import (
-        sumcheck_prove_batch_goldilocks_pallas)
-    from stark_rings_tpu.mle.sumcheck import (
-        sumcheck_prove_many_with_challenges)
-
-    rng = np.random.default_rng(9)
-    _check_pallas_vs_oracle(rng, 13, 3, 256)
-    _check_pallas_vs_oracle(rng, 14, 2, 16)
-    # frog: u64 Montgomery storage, in-kernel 64-bit REDC multiply
-    _check_pallas_vs_oracle(np.random.default_rng(17), 12, 2, 256,
-                            field="frog")
-
-    # W-batched wrapper == per-claim proofs
-    nv, k, W = 12, 2, 3
-    stk = [jnp.asarray(rng.integers(0, F.q, size=(W, 1 << nv),
-                                    dtype=np.uint64)) for _ in range(k)]
-    chals = [jnp.asarray(np.uint64(int(v)))
-             for v in rng.integers(0, F.q, size=(nv,), dtype=np.uint64)]
-    bm, bf = jax.jit(lambda ts: sumcheck_prove_batch_goldilocks_pallas(
-        ts, chals, interpret=True))(stk)
-    for w in range(W):
-        wm, wf = jax.jit(
-            lambda ts: sumcheck_prove_many_with_challenges(
-                F, ts, chals, order="msb"))([T[w] for T in stk])
-        assert np.array_equal(np.asarray(bm[w]), np.asarray(wm)), w
-        for j in range(k):
-            assert int(bf[j][w]) == int(wf[j]), (w, j)
 
 
 def test_sumcheck_kary_product_soundness_and_completeness():
